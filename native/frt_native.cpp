@@ -1,8 +1,8 @@
-// Native BVH builder for first_raytracer_tpu.
+// Native BVH builder for first_raytracer.
 //
-// TPU-native counterpart of the reference's C++ build-time component — the
+// Data-parallel counterpart of the reference's C++ build-time component — the
 // recursive bvh_node constructor [E: bvh.h] (SURVEY.md §3.4).  The hot
-// *traversal* lives on the TPU (accel/traverse.py, kernels/); this library
+// *traversal* lives on the device (accel/traverse.py, kernels/); this library
 // covers the host-side runtime: flattening the scene's primitive bounds into
 // the preorder+skip-link arrays consumed by the device walk.  Exposed via a
 // plain C ABI for ctypes (no pybind11 in the image).

@@ -1,4 +1,4 @@
-// Native (C++) reference oracle renderer for first_raytracer_tpu.
+// Native (C++) reference oracle renderer for first_raytracer.
 //
 // A second, independent implementation of the reference semantics
 // (SURVEY.md §2.1) in the reference's own language: the recursive
@@ -6,7 +6,7 @@
 // [E: hitable_list.h], per-material scatter [E: material.h], thin-lens
 // camera [E: camera.h] — consuming the SAME counter-based Threefry-2x32-20
 // uniforms as core/rng.py, so its per-ray output is directly comparable to
-// both the NumPy oracle and the TPU paths (SURVEY.md §4.1).
+// both the NumPy oracle and the device paths (SURVEY.md §4.1).
 //
 // Float discipline mirrors oracle/cpu_oracle.py operation for operation:
 // f32 arithmetic for vector math, f64 for libm transcendentals with f32

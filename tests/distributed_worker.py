@@ -4,7 +4,7 @@ Launched by tests/test_distributed.py as ``python distributed_worker.py
 <process_id> <num_processes> <port> <outdir>``.  Each process contributes 4
 virtual CPU devices to a global 8-device mesh via a localhost coordinator —
 the same ``jax.distributed.initialize`` + process-spanning-mesh path a real
-multi-host TPU pod uses (SURVEY.md §5.8, docs/multihost.md), with Gloo
+multi-host deployment uses (SURVEY.md §5.8, docs/multihost.md), with Gloo
 standing in for DCN.  Renders the tiny three-spheres preset over the global
 (tiles, spp) mesh and writes the assembled image to <outdir>/img_<pid>.npy.
 """
@@ -25,14 +25,14 @@ def main():
     # Importing the package must NOT initialize the XLA backend (that
     # would break jax.distributed.initialize) — geometry constants are
     # deliberately numpy scalars; this worker is the regression test.
-    from first_raytracer_tpu.parallel.mesh import (initialize_distributed,
-                                                   make_render_mesh)
+    from first_raytracer.parallel.mesh import (initialize_distributed,
+                                               make_render_mesh)
 
     initialize_distributed(coordinator=f"localhost:{port}",
                            num_processes=nproc, process_id=pid)
 
-    from first_raytracer_tpu.parallel.shard import render_image_distributed
-    from first_raytracer_tpu.scene.builders import three_spheres
+    from first_raytracer.parallel.shard import render_image_distributed
+    from first_raytracer.scene.builders import three_spheres
     assert jax.process_count() == nproc
     assert len(jax.devices()) == 4 * nproc
 

@@ -4,12 +4,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.accel.build import build_bvh, scene_prim_bounds
-from first_raytracer_tpu.accel.traverse import intersect_bvh
-from first_raytracer_tpu.render.integrator import intersect_brute
-from first_raytracer_tpu.scene.builders import (random_scene, three_spheres,
-                                                triangle_scene)
-from first_raytracer_tpu.scene.soa import SceneBuilder
+from first_raytracer.accel.build import build_bvh, scene_prim_bounds
+from first_raytracer.accel.traverse import intersect_bvh
+from first_raytracer.render.integrator import intersect_brute
+from first_raytracer.scene.builders import (camera_showcase,
+                                            random_scene, sphere_field,
+                                            three_spheres,
+                                            triangle_field,
+                                            triangle_scene)
+from first_raytracer.scene.soa import SceneBuilder
 
 
 def _random_sphere_scene(n, seed):
@@ -121,3 +124,33 @@ def test_median_split_also_correct():
     bvh = build_bvh(scene, max_leaf=2, use_sah=False)
     o, d = _rays(256, 6)
     _assert_traversal_matches(scene, bvh, o, d, max_leaf=2)
+
+
+@pytest.mark.parametrize("preset,kw", [
+    (camera_showcase, {}),
+    (sphere_field, dict(n=5000)),
+    (triangle_field, dict(n=5000)),
+], ids=["camera-effects", "sphere-field-5000", "triangle-field-5000"])
+def test_traversal_equals_brute_large_scenes(preset, kw):
+    """The plain path's two closest-hit finders agree at large-scene
+    sizes (many leaves, deep trees), on camera rays of the scene."""
+    from first_raytracer.core import rng
+    from first_raytracer.render.camera import generate_rays
+
+    scene, cam, cfg = preset(**kw)
+    bvh = build_bvh(scene, max_leaf=4)
+    key = rng.base_key(0)
+    ids = jnp.arange(0, cfg.num_rays, cfg.num_rays // 1024,
+                     dtype=jnp.int32)
+    o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(key, ids))
+    _assert_traversal_matches(scene, bvh, o, d)
+
+
+@pytest.mark.parametrize("max_leaf", [1, 3, 8])
+def test_leaf_size_invariance(max_leaf):
+    """Winner selection does not depend on how primitives land in leaves."""
+    scene = random_scene(seed=7)[0]
+    bvh = build_bvh(scene, max_leaf=max_leaf)
+    o, d = _rays(700, 0, spread=8.0)
+    _assert_traversal_matches(scene, bvh, o, d, max_leaf=max_leaf)

@@ -51,9 +51,9 @@ def worker_images(tmp_path_factory):
 
 def test_two_process_render_matches_single_process(worker_images):
     """Global-mesh render across 2 processes == single-process render."""
-    from first_raytracer_tpu.parallel.mesh import make_render_mesh
-    from first_raytracer_tpu.parallel.shard import render_image_distributed
-    from first_raytracer_tpu.scene.builders import three_spheres
+    from first_raytracer.parallel.mesh import make_render_mesh
+    from first_raytracer.parallel.shard import render_image_distributed
+    from first_raytracer.scene.builders import three_spheres
 
     scene, cam, cfg = three_spheres(nx=24, ny=12, spp=2)
     mesh = make_render_mesh(num_tile_shards=4, num_spp_shards=2)

@@ -3,14 +3,14 @@ edge cases, hit_all/hit_one consistency, AABB slab test."""
 import jax.numpy as jnp
 import numpy as np
 
-from first_raytracer_tpu.geometry.aabb import (aabb_hit, sphere_aabb_np,
-                                               triangle_aabb_np)
-from first_raytracer_tpu.geometry.sphere import (BIG, sphere_hit_all,
-                                                 sphere_hit_one,
-                                                 sphere_normal)
-from first_raytracer_tpu.geometry.triangle import (triangle_hit_all,
-                                                   triangle_hit_one,
-                                                   triangle_normal)
+from first_raytracer.geometry.aabb import (aabb_hit, sphere_aabb_np,
+                                           triangle_aabb_np)
+from first_raytracer.geometry.sphere import (BIG, sphere_hit_all,
+                                             sphere_hit_one,
+                                             sphere_normal)
+from first_raytracer.geometry.triangle import (triangle_hit_all,
+                                               triangle_hit_one,
+                                               triangle_normal)
 
 T_MIN, T_MAX = 1e-3, 1e30
 

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.render.api import render_ray_batch
-from first_raytracer_tpu.scene.builders import (camera_showcase, random_scene,
-                                                three_spheres, triangle_scene)
+from first_raytracer.core import rng
+from first_raytracer.render.api import render_ray_batch
+from first_raytracer.scene.builders import (camera_showcase, random_scene,
+                                            three_spheres, triangle_scene)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.accel.build import build_bvh
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.diff.grad import (render_loss, render_loss_and_grads,
-                                           sgd_step, split_params)
-from first_raytracer_tpu.scene.builders import three_spheres
+from first_raytracer.accel.build import build_bvh
+from first_raytracer.core import rng
+from first_raytracer.diff.grad import (render_loss, render_loss_and_grads,
+                                       sgd_step, split_params)
+from first_raytracer.scene.builders import three_spheres
 
 # Moderate depth keeps FD noise manageable; semantics identical.
 CFG_KW = dict(nx=12, ny=6, spp=2)
@@ -44,7 +44,7 @@ def _fd_vs_ad(setup, field, index, h, rtol, accel=None, atol=1e-5,
     scene, cam, cfg, key, ids, target = setup
     intersect_fn = None
     if freeze_selection:
-        from first_raytracer_tpu.render.integrator import default_intersect
+        from first_raytracer.render.integrator import default_intersect
 
         def intersect_fn(scene_arg, accel_arg, o, d, t_min):  # noqa: F811
             return default_intersect(scene, accel, o, d, t_min)
@@ -118,9 +118,9 @@ def tri_setup():
     """One large triangle square-on to the camera: center pixels hit its
     interior, far from every silhouette, so FD of vertex perturbations
     measures the same hit-equation derivative autodiff computes."""
-    from first_raytracer_tpu.render.camera import make_camera
-    from first_raytracer_tpu.render.integrator import RenderConfig
-    from first_raytracer_tpu.scene.soa import SceneBuilder
+    from first_raytracer.render.camera import make_camera
+    from first_raytracer.render.integrator import RenderConfig
+    from first_raytracer.scene.soa import SceneBuilder
 
     b = SceneBuilder()
     m = b.lambertian((0.7, 0.3, 0.2))
@@ -151,7 +151,7 @@ def test_grad_triangle_vertices_match_fd(tri_setup, field, index):
 @pytest.fixture(scope="module")
 def checker_setup():
     """Checker-ground camera scene (camera_showcase semantics, tiny)."""
-    from first_raytracer_tpu.scene.builders import camera_showcase
+    from first_raytracer.scene.builders import camera_showcase
     scene, cam, cfg = camera_showcase(nx=12, ny=6, spp=2)
     cfg = dataclasses.replace(cfg, max_depth=MAX_DEPTH)
     key = rng.base_key(0)
@@ -196,10 +196,10 @@ def test_inverse_rendering_recovers_sphere_center():
     gradients intentionally omit — both excluded by construction)."""
     import optax
 
-    from first_raytracer_tpu.diff.grad import make_fit_step, ray_radiance
-    from first_raytracer_tpu.render.camera import make_camera
-    from first_raytracer_tpu.render.integrator import RenderConfig
-    from first_raytracer_tpu.scene.soa import SceneBuilder
+    from first_raytracer.diff.grad import make_fit_step, ray_radiance
+    from first_raytracer.render.camera import make_camera
+    from first_raytracer.render.integrator import RenderConfig
+    from first_raytracer.scene.soa import SceneBuilder
 
     b = SceneBuilder()
     b.sphere((0.0, 0.0, -1.5), 0.5, b.metal((0.9, 0.9, 0.9), fuzz=0.0))
@@ -252,7 +252,7 @@ def test_inverse_rendering_recovers_albedo(setup):
     """Perturb the center sphere's albedo; SGD on the pixel loss must pull it
     back toward the true value (end-to-end differentiability demo)."""
     scene, cam, cfg, key, ids, _ = setup
-    from first_raytracer_tpu.diff.grad import ray_radiance
+    from first_raytracer.diff.grad import ray_radiance
     true_params, _ = split_params(scene, fields=("albedo",))
     target = ray_radiance(true_params, scene, cam, cfg, key, ids)
 
@@ -272,8 +272,8 @@ def test_scan_matches_while_forward(setup):
     """differentiable=True (scan) and False (while_loop) produce identical
     radiance — the masked math is the same."""
     scene, cam, cfg, key, ids, _ = setup
-    from first_raytracer_tpu.diff.grad import ray_radiance
-    from first_raytracer_tpu.render.api import render_ray_batch
+    from first_raytracer.diff.grad import ray_radiance
+    from first_raytracer.render.api import render_ray_batch
     params, _ = split_params(scene, fields=())
     rad_scan = np.asarray(ray_radiance(params, scene, cam, cfg, key, ids))
     rad_while = np.asarray(render_ray_batch(scene, cam, cfg, key, ids))
@@ -282,30 +282,28 @@ def test_scan_matches_while_forward(setup):
     np.testing.assert_allclose(rad_scan, rad_while, atol=1e-4)
 
 
-def test_grads_through_pallas_intersector(setup):
-    """The fused Pallas closest-hit kernel is usable in the differentiable
-    path as-is: its outputs (prim id, t, hit) are selection-only — prim/hit
-    are non-differentiable types and t is discarded by the integrator —
-    so no tangent ever flows through the pallas_call, and the gradient
-    comes entirely from the differentiable hit recompute (SURVEY.md §7
-    step 6 "differentiate the hit equation, not the traversal").  Grads
-    must match the brute-force intersector's exactly (same selection)."""
-    import functools
-
-    from first_raytracer_tpu.kernels.intersect_pallas import (
-        intersect_pallas, pack_scene_pallas)
+def test_grads_from_kernel_tape_match_brute(setup):
+    """A tape recorded by the path-tracing kernel (interpreted) drives the
+    replay to the same loss and gradients as the brute-force record: the
+    kernel only selects primitives, every gradient comes from the
+    differentiable replay (SURVEY.md §7 step 6)."""
+    from first_raytracer.diff.grad import render_loss_and_grads_tape
+    from first_raytracer.kernels.megakernel import (pack_scene_mega,
+                                                    record_paths_mega)
 
     scene, cam, cfg, key, ids, target = setup
     params, _ = split_params(scene, fields=("albedo", "sphere_center"))
-    _, g_brute = render_loss_and_grads(
-        params, scene, cam, cfg, key, ids, target)
-    pack = pack_scene_pallas(scene)
-    fn = functools.partial(intersect_pallas, interpret=True)
-    _, g_pallas = render_loss_and_grads(
-        params, scene, cam, cfg, key, ids, target, pack, intersect_fn=fn)
+    l_b, g_b = render_loss_and_grads(params, scene, cam, cfg, key, ids,
+                                     target)
+    tape = record_paths_mega(pack_scene_mega(scene), cam, cfg, key,
+                             num_rays=ids.shape[0], interpret=True,
+                             block=32)
+    l_k, g_k = render_loss_and_grads_tape(params, scene, cam, cfg, key, ids,
+                                          target, tape)
+    np.testing.assert_allclose(float(l_k), float(l_b), rtol=1e-5)
     for f in params:
-        np.testing.assert_allclose(np.asarray(g_pallas[f]),
-                                   np.asarray(g_brute[f]), atol=1e-6)
+        np.testing.assert_allclose(np.asarray(g_k[f]), np.asarray(g_b[f]),
+                                   rtol=2e-3, atol=1e-6)
 
 
 def test_optax_fit_step_converges(setup):
@@ -313,7 +311,7 @@ def test_optax_fit_step_converges(setup):
     the stateful-optimizer generalization of sgd_step used by cli fit."""
     import optax
 
-    from first_raytracer_tpu.diff.grad import make_fit_step, ray_radiance
+    from first_raytracer.diff.grad import make_fit_step, ray_radiance
 
     scene, cam, cfg, key, ids, _ = setup
     true_params, _ = split_params(scene, fields=("albedo",))

@@ -24,12 +24,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.diff.grad import ray_radiance, split_params
-from first_raytracer_tpu.diff.replay import record_paths
-from first_raytracer_tpu.oracle import native_oracle
-from first_raytracer_tpu.render.camera import generate_rays
-from first_raytracer_tpu.scene.builders import three_spheres
+from first_raytracer.core import rng
+from first_raytracer.diff.grad import ray_radiance, split_params
+from first_raytracer.diff.replay import record_paths
+from first_raytracer.oracle import native_oracle
+from first_raytracer.render.camera import generate_rays
+from first_raytracer.scene.builders import three_spheres
 
 pytestmark = pytest.mark.skipif(not native_oracle.available(),
                                 reason="native oracle not built")
@@ -131,7 +131,7 @@ def test_sphere_radius_grad_matches_oracle_fd(setup):
 
 @pytest.fixture(scope="module")
 def setup_tri():
-    from first_raytracer_tpu.scene.builders import triangle_scene
+    from first_raytracer.scene.builders import triangle_scene
     scene, cam, cfg = triangle_scene(nx=16, ny=8, spp=2)
     cfg = dataclasses.replace(cfg, max_depth=MAX_DEPTH)
     key = rng.base_key(0)
@@ -141,7 +141,7 @@ def setup_tri():
 
 @pytest.fixture(scope="module")
 def setup_checker():
-    from first_raytracer_tpu.scene.builders import camera_showcase
+    from first_raytracer.scene.builders import camera_showcase
     scene, cam, cfg = camera_showcase(nx=16, ny=8, spp=2)
     cfg = dataclasses.replace(cfg, max_depth=MAX_DEPTH)
     key = rng.base_key(0)

@@ -4,8 +4,8 @@ import zlib
 
 import numpy as np
 
-from first_raytracer_tpu.render.image import (gamma_correct, to_uint8,
-                                              write_png, write_ppm)
+from first_raytracer.render.image import (gamma_correct, to_uint8,
+                                          write_png, write_ppm)
 
 
 def test_gamma_is_sqrt():

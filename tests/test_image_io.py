@@ -9,9 +9,9 @@ import sys
 
 import numpy as np
 
-from first_raytracer_tpu.render.image import (image_diff_stats, read_image,
-                                              read_png, read_ppm, to_uint8,
-                                              write_png, write_ppm)
+from first_raytracer.render.image import (image_diff_stats, read_image,
+                                          read_png, read_ppm, to_uint8,
+                                          write_png, write_ppm)
 
 
 def _gradient(ny=13, nx=17):
@@ -105,7 +105,7 @@ def test_diff_stats_and_compare_cli(tmp_path):
     stats = image_diff_stats(read_image(str(a)), read_image(str(c)))
     assert stats["max_abs"] > 4 and 0 < stats["frac_pixels_gt_4"] < 0.02
 
-    from first_raytracer_tpu.cli import main
+    from first_raytracer.cli import main
     assert main(["compare", str(a), str(b), "--max-frac-gt-4", "0.0"]) in (
         0, None)
     assert main(["compare", str(a), str(c), "--max-frac-gt-4", "0.0"]) == 1

@@ -1,14 +1,14 @@
 """Observability metrics (SURVEY.md §5.5): wavefront occupancy / bounce
-histogram accounting and megakernel lane-occupancy, plus structured
+histogram accounting and the path-tracing kernel's lane occupancy, plus structured
 logging."""
 import logging
 
 import numpy as np
 
-from first_raytracer_tpu.scene.builders import PRESETS
-from first_raytracer_tpu.utils.metrics import (log_metrics,
-                                               megakernel_occupancy,
-                                               wavefront_occupancy)
+from first_raytracer.scene.builders import PRESETS
+from first_raytracer.utils.metrics import (log_metrics,
+                                           megakernel_occupancy,
+                                           wavefront_occupancy)
 
 
 def _tiny():
@@ -32,28 +32,15 @@ def test_megakernel_occupancy_consistent_with_wavefront():
     scene, cam, cfg = _tiny()
     wf = wavefront_occupancy(scene, cam, cfg, seed=0,
                              num_rays=cfg.num_rays)
-    mk = megakernel_occupancy(scene, cam, cfg, seed=0, tile=128, k_pix=2,
+    mk = megakernel_occupancy(scene, cam, cfg, seed=0, block=32,
                               interpret=True)
     # Same RNG stream => identical total traced segments per path.
     assert abs(mk["mean_path_len"] - wf["avg_path_length"]) < 1e-3
     assert 0.0 < mk["lane_occupancy"] <= 1.0
 
 
-def test_clustered_megakernel_occupancy_consistent():
-    from first_raytracer_tpu.utils.metrics import (
-        megakernel_clustered_occupancy)
-
-    scene, cam, cfg = _tiny()
-    wf = wavefront_occupancy(scene, cam, cfg, seed=0,
-                             num_rays=cfg.num_rays)
-    mc = megakernel_clustered_occupancy(scene, cam, cfg, seed=0, tile=128,
-                                        k_pix=2, interpret=True)
-    assert abs(mc["mean_path_len"] - wf["avg_path_length"]) < 1e-3
-    assert 0.0 < mc["lane_occupancy"] <= 1.0
-
-
 def test_log_metrics_emits_json(caplog):
-    with caplog.at_level(logging.INFO, logger="first_raytracer_tpu"):
+    with caplog.at_level(logging.INFO, logger="first_raytracer"):
         log_metrics("tag", {"a": 1})
     assert any("tag" in r.getMessage() and '"a": 1' in r.getMessage()
                for r in caplog.records)

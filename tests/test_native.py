@@ -5,10 +5,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.accel import native
-from first_raytracer_tpu.accel.build import build_bvh
-from first_raytracer_tpu.scene.builders import random_scene, triangle_scene
-from first_raytracer_tpu.scene.soa import SceneBuilder
+from first_raytracer.accel import native
+from first_raytracer.accel.build import build_bvh
+from first_raytracer.scene.builders import random_scene, triangle_scene
+from first_raytracer.scene.soa import SceneBuilder
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,11 +56,11 @@ def test_native_matches_numpy_presets():
 
 
 class TestNativeOracle:
-    """C++ oracle (native/frt_oracle.cpp) vs NumPy oracle vs TPU wavefront:
+    """C++ oracle (native/frt_oracle.cpp) vs NumPy oracle vs the device wavefront:
     three independent implementations of the reference semantics agree."""
 
     def _skip_if_missing(self):
-        from first_raytracer_tpu.oracle import native_oracle
+        from first_raytracer.oracle import native_oracle
         import pytest
         if not native_oracle.available():
             pytest.skip("libfrt_native.so not built")
@@ -68,12 +68,12 @@ class TestNativeOracle:
     def test_matches_numpy_oracle(self):
         self._skip_if_missing()
         import numpy as np
-        from first_raytracer_tpu.oracle.cpu_oracle import render_oracle
-        from first_raytracer_tpu.oracle.native_oracle import (
+        from first_raytracer.oracle.cpu_oracle import render_oracle
+        from first_raytracer.oracle.native_oracle import (
             render_oracle_native)
-        from first_raytracer_tpu.scene.builders import (camera_showcase,
-                                                        three_spheres,
-                                                        triangle_scene)
+        from first_raytracer.scene.builders import (camera_showcase,
+                                                    three_spheres,
+                                                    triangle_scene)
 
         for preset in (three_spheres, triangle_scene, camera_showcase):
             scene, cam, cfg = preset(nx=24, ny=12, spp=2)
@@ -82,13 +82,13 @@ class TestNativeOracle:
             # Same op order in f32; only libm transcendental ulps differ.
             np.testing.assert_allclose(a, b, atol=2e-5, rtol=0)
 
-    def test_matches_tpu_wavefront(self):
+    def test_matches_device_wavefront(self):
         self._skip_if_missing()
         import numpy as np
-        from first_raytracer_tpu.oracle.native_oracle import (
+        from first_raytracer.oracle.native_oracle import (
             render_oracle_native)
-        from first_raytracer_tpu.render.api import render_image
-        from first_raytracer_tpu.scene.builders import three_spheres
+        from first_raytracer.render.api import render_image
+        from first_raytracer.scene.builders import three_spheres
 
         scene, cam, cfg = three_spheres(nx=24, ny=12, spp=2)
         a = render_oracle_native(scene, cam, cfg)

@@ -1,4 +1,4 @@
-"""Golden parity: wavefront TPU-path radiance vs the recursive CPU oracle
+"""Golden parity: wavefront device-path radiance vs the recursive CPU oracle
 (SURVEY.md §4.1/§4.3; the driver's 'pixel allclose vs reference' gate,
 BASELINE.json:2).
 
@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.oracle.cpu_oracle import render_oracle
-from first_raytracer_tpu.render.api import render_image, render_ray_batch
-from first_raytracer_tpu.scene.builders import (camera_showcase, random_scene,
-                                                three_spheres, triangle_scene)
+from first_raytracer.core import rng
+from first_raytracer.oracle.cpu_oracle import render_oracle
+from first_raytracer.render.api import render_image, render_ray_batch
+from first_raytracer.scene.builders import (camera_showcase, random_scene,
+                                            three_spheres, triangle_scene)
 
 # Small configs: full 50-depth semantics, tiny ray counts for CI speed.
 CASES = [

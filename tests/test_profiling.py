@@ -6,8 +6,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from first_raytracer_tpu.utils.profiling import (Timer, throughput, time_fn,
-                                                 trace_to)
+from first_raytracer.utils.profiling import (Timer, throughput, time_fn,
+                                             trace_to)
 
 
 def test_timer_and_time_fn():

@@ -4,10 +4,10 @@ import dataclasses
 
 import numpy as np
 
-from first_raytracer_tpu.render.api import render_image
-from first_raytracer_tpu.render.progressive import (ProgressiveState,
-                                                    progressive_render)
-from first_raytracer_tpu.scene.builders import three_spheres
+from first_raytracer.render.api import render_image
+from first_raytracer.render.progressive import (ProgressiveState,
+                                                progressive_render)
+from first_raytracer.scene.builders import three_spheres
 
 
 def test_progressive_matches_oneshot(tiny_three_spheres):
@@ -58,18 +58,18 @@ def test_checkpoint_rejects_wrong_seed(tmp_path, tiny_three_spheres):
 
 
 def test_progressive_megakernel_matches_wavefront(tmp_path):
-    """mode='mega' batches (interpret kernel) == plain progressive render,
-    including a mid-run kill/resume."""
+    """mode='mega' batches (the path-tracing kernel, interpreted) == plain
+    progressive render, including a mid-run kill/resume."""
     import dataclasses
 
-    from first_raytracer_tpu.render import progressive as prog
-    from first_raytracer_tpu.kernels import megakernel as mk
-    from first_raytracer_tpu.scene.builders import three_spheres
+    from first_raytracer.render import progressive as prog
+    from first_raytracer.kernels import megakernel as mk
+    from first_raytracer.scene.builders import three_spheres
 
     # interpret mode for the CPU suite
-    orig = mk._mega_jit
+    orig = mk._launch_jit
     try:
-        mk._mega_jit = lambda *a, **kw: orig(*a, **{**kw, "interpret": True})
+        mk._launch_jit = lambda *a, **kw: orig(*a, **{**kw, "interpret": True})
         scene, cam, cfg = three_spheres(nx=16, ny=8, spp=4)
         ref = prog.progressive_render(scene, cam, cfg, seed=0,
                                       samples_per_batch=2)
@@ -99,15 +99,15 @@ def test_progressive_megakernel_matches_wavefront(tmp_path):
         assert (d > 1e-3).mean() < 0.01
         assert np.median(d) < 1e-5
     finally:
-        mk._mega_jit = orig
+        mk._launch_jit = orig
 
 
 def test_orbax_checkpoint_backend(tmp_path):
     """Non-.npz checkpoint paths use the orbax PyTree backend; resume is
     bit-identical to the npz path (SURVEY.md §5.4 "save with orbax/npz")."""
-    from first_raytracer_tpu.render.progressive import (ProgressiveState,
-                                                        progressive_render)
-    from first_raytracer_tpu.scene.builders import PRESETS
+    from first_raytracer.render.progressive import (ProgressiveState,
+                                                    progressive_render)
+    from first_raytracer.scene.builders import PRESETS
 
     scene, cam, cfg = PRESETS["three-spheres"](nx=24, ny=12, spp=4)
     ck = str(tmp_path / "ckpt_orbax")

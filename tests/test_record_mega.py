@@ -1,24 +1,26 @@
-"""Megakernel tape recorder vs the wavefront recorders (VERDICT r3 item 3).
+"""The path-tracing kernel's tape recorder vs the wavefront recorders.
 
-The recorder (kernels/record_mega.py) must produce the exact tape contract
-of ``diff.replay.record_paths``: same shape, -1 for miss/dead, ORIGINAL
-scene primitive ids, identical entries for identical RNG streams — so the
-differentiable replay consumes either tape unchanged.  Interpret mode
-exercises the compiled dataflow on CPU (SURVEY.md §5.2).
+The recorder (``record=True`` in kernels/megakernel.py) must produce the
+exact tape contract of ``diff.replay.record_paths``: same shape, -1 for
+miss/dead, global scene primitive ids, identical entries for identical RNG
+streams — so the differentiable replay consumes either tape unchanged.
+Interpret mode runs the kernel's dataflow on the CPU (SURVEY.md §5.2).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.diff.replay import record_paths
-from first_raytracer_tpu.kernels.record_mega import (pack_scene_mega,
-                                                     record_paths_mega)
-from first_raytracer_tpu.render.camera import generate_rays
-from first_raytracer_tpu.scene.builders import (camera_showcase,
-                                                random_scene, three_spheres,
-                                                triangle_scene)
+from first_raytracer.core import rng
+from first_raytracer.diff.replay import record_paths
+from first_raytracer.kernels.megakernel import (pack_scene_mega,
+                                                record_paths_mega)
+from first_raytracer.render.camera import generate_rays
+from first_raytracer.scene.builders import (camera_showcase,
+                                            random_scene, sphere_field,
+                                            three_spheres,
+                                            triangle_field,
+                                            triangle_scene)
 
 
 def _wavefront_tape(scene, cam, cfg, key, ids):
@@ -30,17 +32,18 @@ def _wavefront_tape(scene, cam, cfg, key, ids):
 @pytest.mark.parametrize("preset,kw,min_agree", [
     (three_spheres, dict(nx=32, ny=16, spp=4), 0.999),
     # The tetrahedron bases are COPLANAR with the floor quad: over that
-    # region two primitives' hit t agree to 0-3 ulp, and the recorder's
-    # exact (min t, min slot) selection in GROUP-SORTED index space can
-    # legitimately resolve the tie to the other primitive than the
-    # original-order wavefront argmin (~0.5% of entries after divergence
-    # amplification).  test_tri_tape_divergence_is_exact_ties_only proves
-    # every divergence starts at such a tie.
+    # region two primitives' hit t agree to 0-3 ulp, so a different
+    # rounding of the same hit equation can legitimately resolve the tie
+    # to the other primitive (divergence amplifies it along the path).
+    # test_tri_tape_divergence_is_exact_ties_only proves every divergence
+    # starts at such a tie.
     (triangle_scene, dict(nx=32, ny=16, spp=2), 0.99),
     (camera_showcase, dict(nx=32, ny=16, spp=4), 0.999),
     (random_scene, dict(nx=24, ny=12, spp=2), 0.999),
+    (sphere_field, dict(n=300, nx=16, ny=8, spp=2), 0.999),
+    (triangle_field, dict(n=200, nx=16, ny=8, spp=2), 0.99),
 ], ids=["three-spheres", "triangle-mesh", "camera-effects",
-        "random-spheres"])
+        "random-spheres", "sphere-field", "triangle-field"])
 def test_recorder_matches_wavefront_tape(preset, kw, min_agree):
     scene, cam, cfg = preset(**kw)
     key = rng.base_key(0)
@@ -48,47 +51,48 @@ def test_recorder_matches_wavefront_tape(preset, kw, min_agree):
     ref = _wavefront_tape(scene, cam, cfg, key, ids)
     pack = pack_scene_mega(scene)
     got = np.asarray(record_paths_mega(pack, cam, cfg, key,
-                                       interpret=True))
+                                       interpret=True, block=32))
     assert got.shape == ref.shape
-    # The kernels share every f32 op with the wavefront path except the
-    # documented cbrt/rsqrt ulp deviations and the packed-min tie-break,
-    # which can flip rare near-tie winners; demand near-total agreement,
-    # not bitwise.
+    # The kernel repeats every f32 op of the wavefront path, but a
+    # different rounding (FMA contraction, the device's cbrt) can flip
+    # rare near-tie winners; demand near-total agreement, not bitwise.
     agree = (got == ref).mean()
     assert agree > min_agree, f"tape agreement {agree:.4%}"
 
 
-def test_recorder_ray0_offset_slices_the_full_tape():
+@pytest.mark.parametrize("ray0,n", [(100, 256), (0, 37), (1000, 24)])
+def test_recorder_ray0_offset_slices_the_full_tape(ray0, n):
     scene, cam, cfg = three_spheres(nx=32, ny=16, spp=2)
     key = rng.base_key(3)
     pack = pack_scene_mega(scene)
     full = np.asarray(record_paths_mega(pack, cam, cfg, key,
-                                        interpret=True))
-    ray0, n = 100, 256
+                                        interpret=True, block=64))
     part = np.asarray(record_paths_mega(pack, cam, cfg, key, ray0=ray0,
-                                        num_rays=n, interpret=True))
+                                        num_rays=n, interpret=True,
+                                        block=64))
     np.testing.assert_array_equal(part, full[:, ray0:ray0 + n])
 
 
-def test_recorder_multi_tile_and_k_rays():
-    """Grid-stride mapping: multiple tiles x k_rays slots reassemble to
-    the flat ray order."""
+@pytest.mark.parametrize("block", [16, 128])
+def test_recorder_block_sizes(block):
+    """Any block size (including one larger than the ray count's last
+    block) reassembles to the flat ray order."""
     scene, cam, cfg = three_spheres(nx=40, ny=8, spp=2)
     key = rng.base_key(0)
     ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
     ref = _wavefront_tape(scene, cam, cfg, key, ids)
     pack = pack_scene_mega(scene)
     got = np.asarray(record_paths_mega(pack, cam, cfg, key, interpret=True,
-                                       tile=128, k_rays=2))
+                                       block=block))
     assert (got == ref).mean() > 0.999
 
 
 def test_replay_consumes_recorder_tape():
     """Gradients from the recorder tape match the wavefront-recorded path
     end-to-end (loss + every parameter gradient)."""
-    from first_raytracer_tpu.diff.grad import (render_loss_and_grads_tape,
-                                               split_params)
-    from first_raytracer_tpu.diff.replay import live_trips
+    from first_raytracer.diff.grad import (render_loss_and_grads_tape,
+                                           split_params)
+    from first_raytracer.diff.replay import live_trips
 
     scene, cam, cfg = random_scene(nx=16, ny=8, spp=2)
     key = rng.base_key(1)
@@ -99,7 +103,8 @@ def test_replay_consumes_recorder_tape():
 
     ref_tape = jnp.asarray(_wavefront_tape(scene, cam, cfg, key, ids))
     pack = pack_scene_mega(scene)
-    mega_tape = record_paths_mega(pack, cam, cfg, key, interpret=True)
+    mega_tape = record_paths_mega(pack, cam, cfg, key, interpret=True,
+                                  block=32)
 
     trips = live_trips(ref_tape)
     l1, g1 = render_loss_and_grads_tape(params, scene, cam, cfg, key, ids,
@@ -113,12 +118,10 @@ def test_replay_consumes_recorder_tape():
 
 
 def test_recorder_exact_pixel_decode_at_large_ray_ids():
-    """Full-frame ray ids reach ~10M, where a plain f32 reciprocal decode
-    of rid // spp is one ulp from misdecoding the pixel (the recorder
-    uses a remainder-corrected floor-div).  Record a slice high in the id
-    space of a full-size config and compare against the wavefront
-    recorder at the same ids."""
-    from first_raytracer_tpu.scene.builders import random_scene as _rs
+    """Full-frame ray ids reach ~10M: record a slice high in the id space
+    of a full-size config and compare against the wavefront recorder at
+    the same ids (the pixel decode must be exact there)."""
+    from first_raytracer.scene.builders import random_scene as _rs
 
     scene, cam, cfg = _rs()          # 1200x800 @ 10spp: ids up to 9.6M
     key = rng.base_key(0)
@@ -127,31 +130,33 @@ def test_recorder_exact_pixel_decode_at_large_ray_ids():
     ref = _wavefront_tape(scene, cam, cfg, key, ids)
     pack = pack_scene_mega(scene)
     got = np.asarray(record_paths_mega(pack, cam, cfg, key, ray0=ray0,
-                                       num_rays=n, interpret=True))
+                                       num_rays=n, interpret=True,
+                                       block=128))
     agree = (got == ref).mean()
     assert agree > 0.999, f"tape agreement {agree:.4%} at large ray ids"
 
 
-def test_legacy_recorder_matches_mega_impl():
-    """The standalone recorder kernel (impl="legacy", kept as the Mosaic
-    codegen-cliff repro) must produce the same tape as the production
-    megakernel-backed implementation."""
+def test_recorder_tape_matches_pool_recorder():
+    """The XLA pool recorder (the other side of render.routing's choice)
+    and the kernel record the same tape."""
+    from first_raytracer.diff.replay import record_paths_pool
+
     scene, cam, cfg = random_scene(nx=24, ny=12, spp=2)
     key = rng.base_key(0)
-    pack = pack_scene_mega(scene)
-    v2 = np.asarray(record_paths_mega(pack, cam, cfg, key, interpret=True))
-    legacy = np.asarray(record_paths_mega(pack, cam, cfg, key,
-                                          interpret=True, impl="legacy"))
-    agree = (v2 == legacy).mean()
-    assert agree > 0.999, f"legacy/mega tape agreement {agree:.4%}"
+    ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
+    pool = np.asarray(record_paths_pool(scene, cam, cfg, key, ids,
+                                        pool_size=128))
+    got = np.asarray(record_paths_mega(pack_scene_mega(scene), cam, cfg,
+                                       key, interpret=True, block=32))
+    assert (got == pool).mean() > 0.999
 
 
 def _first_divergences_are_exact_ties(scene, cam, cfg, key, ref, got):
     """Walk the ref tape forward; at each ray's FIRST tape divergence,
     both candidates' recomputed hit t must be bit-equal (a legitimate
     tie).  Returns the diverging-ray count."""
-    from first_raytracer_tpu.materials.scatter import scatter
-    from first_raytracer_tpu.render.integrator import recompute_hit
+    from first_raytracer.materials.scatter import scatter
+    from first_raytracer.render.integrator import recompute_hit
 
     R = ref.shape[1]
     ids = jnp.arange(R, dtype=jnp.int32)
@@ -207,7 +212,7 @@ def test_tri_tape_divergence_is_exact_ties_only():
     ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
     ref = _wavefront_tape(scene, cam, cfg, key, ids)
     got = np.asarray(record_paths_mega(pack_scene_mega(scene), cam, cfg,
-                                       key, interpret=True))
+                                       key, interpret=True, block=32))
     n_div = _first_divergences_are_exact_ties(scene, cam, cfg, key, ref,
                                               got)
     # The per-entry agreement floor stays 0.99 because one tie flip
@@ -216,115 +221,3 @@ def test_tri_tape_divergence_is_exact_ties_only():
     # coplanar floor/tetra-base region covers a few percent of the frame,
     # so a few percent of rays legitimately diverge.
     assert n_div < 0.1 * cfg.num_rays
-
-
-def test_clustered_recorder_matches_wavefront_tape():
-    """The CLUSTERED recorder (record_paths_mega_clustered — the large-
-    scene tape path, VERDICT r4 item 4) honors the same tape contract."""
-    from first_raytracer_tpu.kernels.megakernel_clustered import (
-        pack_scene_mega_clustered)
-    from first_raytracer_tpu.kernels.record_mega import (
-        record_paths_mega_clustered)
-    from first_raytracer_tpu.scene.builders import sphere_field
-
-    for preset, kw, floor in ((sphere_field,
-                               dict(n=600, nx=24, ny=12, spp=3), 0.999),
-                              (random_scene, dict(nx=16, ny=8, spp=2),
-                               0.999),
-                              (triangle_scene, dict(nx=16, ny=8, spp=2),
-                               0.99)):
-        scene, cam, cfg = preset(**kw)
-        key = rng.base_key(1)
-        ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
-        ref = _wavefront_tape(scene, cam, cfg, key, ids)
-        pack = pack_scene_mega_clustered(scene, sort_from=cam.origin)
-        for gm in ("slab", "adj", "wl"):
-            got = np.asarray(record_paths_mega_clustered(
-                pack, cam, cfg, key, num_rays=cfg.num_rays,
-                interpret=True, gate_mode=gm))
-            agree = (got == ref).mean()
-            assert agree > floor, f"{gm} tape agreement {agree:.4%}"
-
-
-def test_clustered_recorder_tape_drives_gradients():
-    """End-to-end: clustered-recorded tape -> bucketed replay gradients
-    finite and matching the wavefront-tape gradients."""
-    from first_raytracer_tpu.diff.grad import (
-        render_loss_and_grads_bucketed, split_params)
-    from first_raytracer_tpu.kernels.megakernel_clustered import (
-        pack_scene_mega_clustered)
-    from first_raytracer_tpu.kernels.record_mega import (
-        record_paths_mega_clustered)
-    from first_raytracer_tpu.scene.builders import sphere_field
-
-    scene, cam, cfg = sphere_field(n=600, nx=16, ny=8, spp=2)
-    key = rng.base_key(1)
-    R = cfg.num_rays
-    ids = jnp.arange(R, dtype=jnp.int32)
-    target = jnp.zeros((R, 3), jnp.float32)
-    params, _ = split_params(scene, fields=("albedo", "sphere_center"))
-    ref_tape = jnp.asarray(_wavefront_tape(scene, cam, cfg, key, ids))
-    pack = pack_scene_mega_clustered(scene, sort_from=cam.origin)
-    got_tape = record_paths_mega_clustered(pack, cam, cfg, key,
-                                           num_rays=R, interpret=True)
-    l1, g1 = render_loss_and_grads_bucketed(params, scene, cam, cfg, key,
-                                            ids, target, ref_tape)
-    l2, g2 = render_loss_and_grads_bucketed(params, scene, cam, cfg, key,
-                                            ids, target, got_tape)
-    # A few near-tie winner flips (the documented coplanar/ulp class,
-    # ~0.03% of entries) survive at this tiny R, each moving the mean
-    # loss O(1/R) and moving per-sphere gradient mass between the two
-    # tied primitives: compare the loss statistically and the gradients
-    # with flip-touched primitives masked out.
-    assert np.allclose(float(l1), float(l2), rtol=1e-2)
-    ref_np, got_np = np.asarray(ref_tape), np.asarray(got_tape)
-    bad_rays = (ref_np != got_np).any(axis=0)
-    # A diverged ray re-weights every primitive along BOTH its paths
-    # (throughput downstream, selection at/after the flip): mask them all.
-    flipped = np.unique(np.concatenate([ref_np[:, bad_rays].ravel(),
-                                        got_np[:, bad_rays].ravel()]))
-    flipped = flipped[flipped >= 0]
-    for k in g1:
-        a, b = np.asarray(g1[k]), np.asarray(g2[k])
-        assert np.isfinite(b).all(), k
-        if k == "sphere_center":
-            mask = np.ones(a.shape[0], bool)
-            mask[flipped[flipped < a.shape[0]]] = False
-            a, b = a[mask], b[mask]
-        scale = max(float(np.abs(a).max()), 1e-6)
-        np.testing.assert_allclose(b, a, rtol=0, atol=0.05 * scale,
-                                   err_msg=k)
-
-
-def test_multi_spp_batch_tapes_match_single_batch():
-    """The emit_tape spp-batch interleave (reshape/transpose across
-    sweeps, sample offsets) must reassemble to the single-batch tape for
-    BOTH recorders — production spp splits into batches but test-scale
-    spp never does, so this pins the decode explicitly."""
-    from first_raytracer_tpu.kernels.megakernel_clustered import (
-        pack_scene_mega_clustered)
-    from first_raytracer_tpu.kernels.record_mega import (
-        record_paths_mega_clustered)
-    from first_raytracer_tpu.scene.builders import sphere_field
-
-    scene, cam, cfg = random_scene(nx=16, ny=8, spp=3)
-    key = rng.base_key(0)
-    pack = pack_scene_mega(scene)
-    base = np.asarray(record_paths_mega(pack, cam, cfg, key,
-                                        interpret=True,
-                                        spp_sizes=(3,)))
-    for sizes in ((1, 1, 1), (1, 2), (2, 1)):
-        got = np.asarray(record_paths_mega(pack, cam, cfg, key,
-                                           interpret=True,
-                                           spp_sizes=sizes))
-        np.testing.assert_array_equal(got, base, err_msg=str(sizes))
-
-    scene, cam, cfg = sphere_field(n=400, nx=16, ny=8, spp=3)
-    cpak = pack_scene_mega_clustered(scene, sort_from=cam.origin)
-    base = np.asarray(record_paths_mega_clustered(
-        cpak, cam, cfg, key, num_rays=cfg.num_rays, interpret=True,
-        spp_sizes=(3,)))
-    got = np.asarray(record_paths_mega_clustered(
-        cpak, cam, cfg, key, num_rays=cfg.num_rays, interpret=True,
-        spp_sizes=(1, 2)))
-    np.testing.assert_array_equal(got, base)

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.render.api import render_image, render_ray_batch
-from first_raytracer_tpu.scene.builders import three_spheres
+from first_raytracer.core import rng
+from first_raytracer.render.api import render_image, render_ray_batch
+from first_raytracer.scene.builders import three_spheres
 
 
 def test_tile_rerender_is_deterministic():
@@ -32,8 +32,8 @@ def test_tile_rerender_is_deterministic():
 
 
 def test_checkpoint_fault_injection(tmp_path):
-    from first_raytracer_tpu.render.progressive import (ProgressiveState,
-                                                        progressive_render)
+    from first_raytracer.render.progressive import (ProgressiveState,
+                                                    progressive_render)
 
     scene, cam, cfg = three_spheres(nx=8, ny=4, spp=2)
     ck = str(tmp_path / "state.npz")

@@ -7,8 +7,8 @@ force many regeneration waves."""
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.render.api import render_image
-from first_raytracer_tpu.scene.builders import three_spheres
+from first_raytracer.render.api import render_image
+from first_raytracer.scene.builders import three_spheres
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +27,7 @@ def test_regenerative_matches_wavefront(setup, pool):
 
 
 def test_regenerative_with_bvh(setup):
-    from first_raytracer_tpu.accel.build import build_bvh
+    from first_raytracer.accel.build import build_bvh
     scene, cam, cfg, ref = setup
     bvh = build_bvh(scene)
     img = np.asarray(render_image(scene, cam, cfg, seed=0, accel=bvh,

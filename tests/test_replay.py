@@ -1,26 +1,25 @@
 """Path-replay differentiable pass (diff/replay.py): the record->replay
 split must be *exactly* equivalent — values and gradients — to round 2's
 direct reverse-mode through the monolithic wavefront scan, for every
-intersector (brute / BVH / Pallas interpret), on sphere-only, mixed, and
+intersector (brute / BVH), on sphere-only, mixed, and
 checker scenes."""
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.accel.build import build_bvh
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.diff.grad import (ray_radiance,
-                                           render_loss_and_grads,
-                                           split_params)
-from first_raytracer_tpu.diff.replay import record_paths
-from first_raytracer_tpu.render.camera import generate_rays
-from first_raytracer_tpu.scene.builders import (camera_showcase,
-                                                three_spheres,
-                                                triangle_scene)
+from first_raytracer.accel.build import build_bvh
+from first_raytracer.core import rng
+from first_raytracer.diff.grad import (ray_radiance,
+                                       render_loss_and_grads,
+                                       split_params)
+from first_raytracer.diff.replay import record_paths
+from first_raytracer.render.camera import generate_rays
+from first_raytracer.scene.builders import (camera_showcase,
+                                            three_spheres,
+                                            triangle_scene)
 
 CFG_KW = dict(nx=12, ny=6, spp=2)
 MAX_DEPTH = 8
@@ -62,7 +61,7 @@ def test_replay_radiance_matches_direct(builder):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("isect", ["brute", "bvh", "pallas"])
+@pytest.mark.parametrize("isect", ["brute", "bvh"])
 def test_replay_grads_match_direct(sph, isect):
     """Gradients through the replay equal the direct path's, per
     intersector (selection is identical, so the differentiable recompute
@@ -71,11 +70,6 @@ def test_replay_grads_match_direct(sph, isect):
     accel, intersect_fn = None, None
     if isect == "bvh":
         accel = build_bvh(scene)
-    elif isect == "pallas":
-        from first_raytracer_tpu.kernels.intersect_pallas import (
-            intersect_pallas, pack_scene_pallas)
-        accel = pack_scene_pallas(scene)
-        intersect_fn = functools.partial(intersect_pallas, interpret=True)
     params, _ = split_params(scene, fields=("albedo", "sphere_center",
                                             "fuzz", "ref_idx"))
     l_r, g_r = render_loss_and_grads(params, scene, cam, cfg, key, ids,
@@ -133,7 +127,7 @@ def test_pool_record_matches_lockstep(sph, pool):
     """The compacted-pool recorder produces the exact tape of the lockstep
     recorder for pools smaller than, comparable to, and larger than the
     live ray population (identical per-ray math, just scheduled densely)."""
-    from first_raytracer_tpu.diff.replay import record_paths_pool
+    from first_raytracer.diff.replay import record_paths_pool
 
     scene, cam, cfg, key, ids, _ = sph
     cam_u = rng.camera_uniforms(key, ids)
@@ -147,8 +141,8 @@ def test_pool_record_matches_lockstep(sph, pool):
 def test_live_trips_trim_is_exact(sph):
     """Trimming the tape to live_trips rows changes nothing — loss and
     grads equal the full-tape replay."""
-    from first_raytracer_tpu.diff.grad import render_loss_and_grads_tape
-    from first_raytracer_tpu.diff.replay import live_trips
+    from first_raytracer.diff.grad import render_loss_and_grads_tape
+    from first_raytracer.diff.replay import live_trips
 
     scene, cam, cfg, key, ids, target = sph
     cam_u = rng.camera_uniforms(key, ids)

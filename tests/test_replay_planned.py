@@ -8,14 +8,14 @@ up to f32 summation order.
 import jax.numpy as jnp
 import numpy as np
 
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.diff.grad import (render_loss_and_grads_bucketed,
-                                           render_loss_and_grads_tape,
-                                           split_params)
-from first_raytracer_tpu.diff.replay import (live_trips, plan_buckets,
-                                             record_paths)
-from first_raytracer_tpu.render.camera import generate_rays
-from first_raytracer_tpu.scene.builders import random_scene, three_spheres
+from first_raytracer.core import rng
+from first_raytracer.diff.grad import (render_loss_and_grads_bucketed,
+                                       render_loss_and_grads_tape,
+                                       split_params)
+from first_raytracer.diff.replay import (live_trips, plan_buckets,
+                                         record_paths)
+from first_raytracer.render.camera import generate_rays
+from first_raytracer.scene.builders import random_scene, three_spheres
 
 
 def _setup(preset, **kw):
@@ -72,7 +72,7 @@ def test_bucketed_work_is_smaller():
 def test_gather_extraction_matches_onehot(monkeypatch):
     """Large-scene extraction fallback (plain gather) must produce the
     same loss and gradients as the one-hot matmul path."""
-    import first_raytracer_tpu.diff.replay as replay_mod
+    import first_raytracer.diff.replay as replay_mod
 
     scene, cam, cfg, key, ids, target, tape = _setup(
         random_scene, nx=16, ny=8, spp=2)
@@ -104,26 +104,19 @@ def test_gather_extraction_matches_onehot(monkeypatch):
 
 
 def test_large_scene_grad_end_to_end():
-    """sphere_field(5000): record with the clustered intersector, replay
-    with the gather extraction (one-hot would materialize (R, 5120));
-    gradients must be finite and the albedo gradient nonzero."""
-    import jax
-    from first_raytracer_tpu.kernels.intersect_clustered import (
-        intersect_clustered, pack_scene_clustered)
-    from first_raytracer_tpu.scene.builders import sphere_field
+    """sphere_field(5000): record with the BVH walk, replay with the gather
+    extraction (one-hot would materialize (R, 5004)); gradients must be
+    finite and the albedo gradient nonzero."""
+    from first_raytracer.accel.build import build_bvh
+    from first_raytracer.scene.builders import sphere_field
 
     scene, cam, cfg = sphere_field(n=5000, nx=16, ny=8, spp=1)
     key = rng.base_key(0)
     ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
     cam_u = rng.camera_uniforms(key, ids)
     o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids, cam_u)
-    accel = pack_scene_clustered(scene)
-
-    def isect(s, a, o_, d_, tm):
-        return intersect_clustered(s, a, o_, d_, tm, interpret=True)
-
-    tape = record_paths(scene, o, d, ids, key, cfg, accel=accel,
-                        intersect_fn=isect)
+    tape = record_paths(scene, o, d, ids, key, cfg,
+                        accel=build_bvh(scene, max_leaf=4))
     params, _ = split_params(scene, fields=("albedo", "sphere_center"))
     target = jnp.zeros((cfg.num_rays, 3), jnp.float32)
     loss, grads = render_loss_and_grads_bucketed(
@@ -139,13 +132,13 @@ def test_fit_step_replay_converges():
     reduce the loss recovering a perturbed albedo."""
     import dataclasses
     import optax
-    from first_raytracer_tpu.diff.grad import make_fit_step_replay
+    from first_raytracer.diff.grad import make_fit_step_replay
 
     scene, cam, cfg = random_scene(nx=16, ny=8, spp=2)
     key = rng.base_key(0)
     ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
     cam_u = rng.camera_uniforms(key, ids)
-    from first_raytracer_tpu.diff.grad import ray_radiance, split_params as sp
+    from first_raytracer.diff.grad import ray_radiance, split_params as sp
     params_true, _ = sp(scene, fields=("albedo",))
     target = ray_radiance(params_true, scene, cam, cfg, key, ids)
     bad = dataclasses.replace(scene, albedo=scene.albedo * 0.6)

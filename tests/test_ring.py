@@ -17,10 +17,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.parallel.mesh import make_render_mesh
-from first_raytracer_tpu.parallel.ring import pad_scene_ring, render_image_ring
-from first_raytracer_tpu.render.api import render_image
-from first_raytracer_tpu.scene.builders import PRESETS
+from first_raytracer.parallel.mesh import make_render_mesh
+from first_raytracer.parallel.ring import pad_scene_ring, render_image_ring
+from first_raytracer.render.api import render_image
+from first_raytracer.scene.builders import PRESETS
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +87,7 @@ def test_ring_on_2d_mesh():
     # replicated across the spp axis; output must still match.
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
-    from first_raytracer_tpu.parallel.mesh import make_render_mesh as mk
+    from first_raytracer.parallel.mesh import make_render_mesh as mk
     mesh42 = mk(4, 2)
     scene, cam, cfg = _small("three-spheres", nx=40, ny=20, spp=2)
     ref = np.asarray(render_image(scene, cam, cfg, seed=0))

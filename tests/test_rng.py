@@ -3,7 +3,7 @@ precompute/lazy agreement, and sampler distributions."""
 import jax.numpy as jnp
 import numpy as np
 
-from first_raytracer_tpu.core import rng
+from first_raytracer.core import rng
 
 
 def test_deterministic_and_order_independent():

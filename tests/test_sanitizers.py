@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 from jax.experimental import checkify
 
-from first_raytracer_tpu.accel.build import build_bvh
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.render.api import render_ray_batch
-from first_raytracer_tpu.scene.builders import random_scene, three_spheres
+from first_raytracer.accel.build import build_bvh
+from first_raytracer.core import rng
+from first_raytracer.render.api import render_ray_batch
+from first_raytracer.scene.builders import random_scene, three_spheres
 
 
 def test_render_nan_free_under_debug_nans():
@@ -34,7 +34,7 @@ def test_render_nan_free_under_debug_nans():
 
 
 def test_bvh_traversal_index_checks():
-    from first_raytracer_tpu.accel.traverse import intersect_bvh
+    from first_raytracer.accel.traverse import intersect_bvh
 
     scene, cam, cfg = random_scene(nx=8, ny=4, spp=1)
     accel = build_bvh(scene, max_leaf=4)

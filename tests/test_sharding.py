@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.core import rng
-from first_raytracer_tpu.diff.grad import render_loss, split_params
-from first_raytracer_tpu.parallel.mesh import make_render_mesh
-from first_raytracer_tpu.parallel.shard import (render_image_auto,
-                                                render_image_sharded)
-from first_raytracer_tpu.render.api import render_image
-from first_raytracer_tpu.scene.builders import three_spheres
+from first_raytracer.core import rng
+from first_raytracer.diff.grad import render_loss, split_params
+from first_raytracer.parallel.mesh import make_render_mesh
+from first_raytracer.parallel.shard import (render_image_auto,
+                                            render_image_sharded)
+from first_raytracer.render.api import render_image
+from first_raytracer.scene.builders import three_spheres
 
 
 @pytest.fixture(scope="module")

@@ -20,10 +20,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from first_raytracer_tpu.oracle import native_oracle
-from first_raytracer_tpu.oracle.cpu_oracle import render_oracle
-from first_raytracer_tpu.render.api import render_image
-from first_raytracer_tpu.scene.builders import random_scene, triangle_scene
+from first_raytracer.oracle import native_oracle
+from first_raytracer.oracle.cpu_oracle import render_oracle
+from first_raytracer.render.api import render_image
+from first_raytracer.scene.builders import random_scene, triangle_scene
 
 # (name, builder, spp).  These are the two scenes whose per-ray parity
 # tests carry a frac_tol escape hatch; spp chosen so the k/spp pixel

@@ -2,9 +2,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from first_raytracer_tpu.core.vecmath import (cross, dot, length, normalize,
-                                              point_at, reflect, refract,
-                                              schlick, squared_length)
+from first_raytracer.core.vecmath import (cross, dot, length, normalize,
+                                          point_at, reflect, refract,
+                                          schlick, squared_length)
 
 
 def test_dot_cross_length():

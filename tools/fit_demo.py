@@ -19,20 +19,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from first_raytracer_tpu.utils.cache import enable_persistent_cache  # noqa: E402
-
-enable_persistent_cache()
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
 
-from first_raytracer_tpu.core import rng  # noqa: E402
-from first_raytracer_tpu.diff.grad import (make_fit_step, merge_params,  # noqa: E402
-                                           ray_radiance, split_params)
-from first_raytracer_tpu.render.api import render_image  # noqa: E402
-from first_raytracer_tpu.render.image import to_uint8, write_png  # noqa: E402
-from first_raytracer_tpu.scene.builders import PRESETS  # noqa: E402
+from first_raytracer.core import rng  # noqa: E402
+from first_raytracer.diff.grad import (make_fit_step, merge_params,  # noqa: E402
+                                       ray_radiance, split_params)
+from first_raytracer.render.api import render_image  # noqa: E402
+from first_raytracer.render.image import to_uint8, write_png  # noqa: E402
+from first_raytracer.scene.builders import PRESETS  # noqa: E402
 
 
 def main():
